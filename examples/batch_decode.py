@@ -1,6 +1,6 @@
 """Batch decoding: a directory/list of waveforms -> .rec label files.
 
-The TPU-native replacement for `phnrec -c DIR -l list.scp` — utterances
+The batched replacement for `phnrec -c DIR -l list.scp` — utterances
 are padded into one [B, L] tensor and the whole wav->labels pipeline runs
 as a single jitted program (parallel/batch.py), optionally sharded over a
 device mesh.

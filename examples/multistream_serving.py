@@ -2,9 +2,9 @@
 
 Each stream gets the exact single-stream semantics (replicate-first-frame
 STC init, 15-frame delay gate, repeat-last-frame tail flush), but all N
-share ONE fused block dispatch — the carried mel tails and the lane-major
-Viterbi state are batched over streams, so serving capacity scales with
-lanes instead of running N processes as the reference would
+share ONE fused block dispatch — the carried mel tails and the stream-
+minor Viterbi state are batched over streams, so serving capacity scales
+with the batch instead of running N processes as the reference would
 (srec.cpp:793-849 is one stream per SpeechRec).
 
     python examples/multistream_serving.py PKG_DIR a.raw b.raw [...]

@@ -1,6 +1,6 @@
 """End-to-end GMM-HMM training: MMF in, EM iterations, MMF out.
 
-Demonstrates the TPU-native training stack (the capability STK ships in
+Demonstrates the device training stack (the capability STK ships in
 its Baum-Welch/Viterbi re-estimation machinery, Viterbi.cc:1124+):
 
   1. parse an HTK MMF (here: a freshly written 2-model toy set),

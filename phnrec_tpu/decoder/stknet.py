@@ -8,7 +8,7 @@ network through null/word nodes with word penalties and LM-scaled arc
 likelihoods (TokenPropagationInNetwork, Viterbi.cc:1340-1500), recording
 word passages as ref-counted WordLinkRecords.
 
-TPU-first redesign: token passing over linked lists is hostile to XLA, but
+Redesign: token passing over linked lists is hostile to XLA, but
 the graphs phnrec exercises are small and static, so the network COMPILES
 to dense arrays:
 
@@ -30,7 +30,7 @@ lowest edge index.
 
 Observation lookup: <PDFObsVec> states read obs[PDF_obs_coef]
 (Viterbi.cc:760-768, the phnrec path); DiagC GMM states get their log
-likelihood batch-precomputed on the MXU before the scan.
+likelihood batch-precomputed as GEMMs before the scan.
 """
 
 from __future__ import annotations
@@ -534,8 +534,7 @@ class NetworkDecoder:
         decoded before this block (times are 1-based, so the block covers
         t0+1..t0+Tb); ``n_valid`` = absolute valid frame count (padded
         steps pass the carry through).  ``unroll`` amortizes scan-loop
-        overhead for narrow-lane serving scans (see docs/MLP_ROOFLINE.md:
-        lane-width dependent — keep 1 for wide batches)."""
+        overhead for narrow serving scans (keep 1 for wide batches)."""
         T = obs_state.shape[0]
         tt = jnp.int32(t0) + jnp.arange(1, T + 1, dtype=jnp.int32)
         return jax.lax.scan(self._step_fn(n_valid, beam), carry,
@@ -812,11 +811,10 @@ class DenseKWSScan:
     serving.
 
     The edge-list step (NetworkDecoder._step_fn) reduces over per-dst
-    gather tables — latency-bound at ~157 us/step when vmapped over
-    streams (measured 2026-08-21, 32 streams, EN KWS net).  For the
-    small static networks phnrec exercises, the same reductions are a
-    broadcast-add + axis-max over dense [SRC, DST] matrices, which the
-    VPU crunches instead of gathering.
+    gather tables, which is latency-bound when vmapped over streams.
+    For the small static networks phnrec exercises, the same reductions
+    are a broadcast-add + axis-max over dense [SRC, DST] matrices:
+    vector work instead of gathers.
 
     Tie-breaking parity with the edge-list path is EXACT by
     construction: per destination, edge ids ascend with (entry slot,
@@ -952,7 +950,7 @@ class DenseKWSScan:
     # -- decode-mode dense step (emits traceback records) ---------------
     def init_carry_decode(self, n: int):
         """[n]-stream decode carry: (alpha [n,E], entry [n,M],
-        entry_edge [n,M]) — no word-time lanes (decode traceback derives
+        entry_edge [n,M]) — no word-time rows (decode traceback derives
         times from the records, not sink_wt)."""
         return (jnp.full((n, self.E), NEG, jnp.float32),
                 jnp.tile(jnp.asarray(self._entry0)[None], (n, 1)),
@@ -1101,7 +1099,7 @@ class KWSTracker:
 
 
 def lrtrace_init_state(n_keywords: int):
-    """Zero state for the device LRTrace scan ([K] lanes)."""
+    """Zero state for the device LRTrace scan ([K] rows)."""
     K = n_keywords
     return (jnp.full((K,), -jnp.inf, jnp.float32),   # last_lr
             jnp.full((K,), -jnp.inf, jnp.float32),   # cand_lr
@@ -1115,7 +1113,7 @@ def lrtrace_step_fn(time_pruning: float, score_pruning: float,
                     improve_kwd_estim: bool = False,
                     keyword0_time_quirk: bool = True):
     """Pure per-frame LRTrace transition (stkinterface.cpp:240-289,
-    349-380) over [K] keyword lanes, shared by the single-stream
+    349-380) over [K] keyword rows, shared by the single-stream
     DeviceKWSTracker (scan over frames) and the multi-stream server
     (vmapped over streams).  ``inputs`` = (word_vals [K], filler scalar,
     word_starts [K], t scalar, live scalar) — a dead frame (live=False,
@@ -1222,7 +1220,7 @@ class DeviceKWSTracker:
 
     The host tracker costs one BLOCKING device->host fetch of the sink
     values per block — through a high-latency link that serializes the
-    live decode.  Here the per-keyword candidate state ([K] lanes of
+    live decode.  Here the per-keyword candidate state ([K] rows of
     last/candidate LR, start/end times, dumped flags) rides inside a
     device scan; only compact flush-event records leave the device, and
     only when the host asks (collect()), so chunk latency no longer
@@ -1244,8 +1242,7 @@ class DeviceKWSTracker:
         self.t = 0
         self._pending: List = []
         # sink-column extraction happens INSIDE the jitted scan when the
-        # sink layout is given (eager slicing would pay a synchronous
-        # lowering round trip per block on remote backends)
+        # sink layout is given (no eager slicing per block)
         self._ws = (None if word_sinks is None
                     else jnp.asarray(np.asarray(word_sinks, np.int32)))
         self._fs = filler_sink

@@ -6,17 +6,17 @@ Reference semantics (melbanks.cpp, dspc.cpp): per 25 ms frame with 10 ms hop
   dspc.cpp:141-146) -> triangular mel filterbank (_mbInit/_mbApply,
   dspc.cpp:80-269) -> ln with a >0 guard (dspc.h:155-160).
 
-TPU-first design: every per-frame step is LINEAR up to the power and log
+Design: every per-frame step is LINEAR up to the power and log
 nonlinearities, so the whole frontend collapses into two GEMMs per frame
-block, sized for the MXU:
+block:
 
   frames [T, vs] --(C = fold(zmean, preem, hamming) @ DFT)--> re/im [T, nfft/2]
   power = re^2 + im^2 --(mel matrix A [nfft/2, nbanks])--> energies [T, nbanks]
   params = ln(max(energies, tiny))
 
 The DFT/mel matrices are built once in float64 and cast to f32; matmuls run
-with Precision.HIGHEST so the MXU accumulates at effectively f32, matching
-the reference's CPU float arithmetic to ~1e-5.
+at the precision.py mode, whose default ("highest") is full float32,
+matching the reference's CPU float arithmetic to ~1e-5.
 """
 
 from __future__ import annotations

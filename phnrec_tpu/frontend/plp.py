@@ -7,7 +7,7 @@ compression -> duplicate edge banks -> IDFT to autocorrelation
 -> LPC-to-cepstrum (dspc.cpp:310-323) -> C0 = -ln(1/gain) appended last ->
 liftering window (dspc.cpp:327-335) -> cepstral scale.
 
-TPU design: mel/IDFT stay the two frontend GEMMs; Durbin and LPC->cepstrum
+Design: mel/IDFT stay the two frontend GEMMs; Durbin and LPC->cepstrum
 have tiny static order (12), so their recurrences unroll at trace time
 into elementwise ops over the whole [T] frame axis — no per-frame loop.
 Not used by any shipped package (selected via params/kind=plp), validated

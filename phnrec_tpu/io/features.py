@@ -23,7 +23,7 @@ fileio.C:354-720), for interchange with HTK/STK tool chains:
     <MEAN>/<VARIANCE>/<VARSCALE> n + values; variance applied as
     1/sqrt(v), varscale as sqrt(v); ReadCepsNormFile, fileio.C)
 
-Everything is host-side NumPy: this is file preparation, not the TPU
+Everything is host-side NumPy: this is file preparation, not the device
 compute path.
 """
 

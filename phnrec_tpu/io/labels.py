@@ -98,7 +98,7 @@ class MLFWriter:
 class MLFIndex:
     """Byte-offset-indexed random-access MLF reader.
 
-    TPU-native stand-in for STKLib's buffered, hash-indexed labelreader
+    Stand-in for STKLib's buffered, hash-indexed labelreader
     (labelreader.{cc,h}): one sequential scan records the byte offset of
     every ``"name"`` entry; lookups seek and parse just that transcription.
     Names match HTK-style: exact, by ``*/base.ext`` wildcard entry, or by

@@ -21,7 +21,7 @@ Supported kinds — the complete set STK defines:
 Instances:  ~j "name" [<Input> <instance>] <VecSize> n <xform or ~x ref>
 (XformInstance with delay chaining; Models_IO.cc:1188-1300).
 
-TPU-first: instead of STK's per-frame Evaluate with delay-line memory
+Here, instead of STK's per-frame Evaluate with delay-line memory
 (ModelSet::UpdateStacks called every ViterbiStep, Viterbi.cc:2068), a whole
 utterance is transformed at once: stacking becomes K shifted zero-padded
 slices of the [T, D] matrix, everything else is vectorized over frames.

@@ -1,6 +1,6 @@
 """Native (C++) host-runtime kernels, bound via ctypes.
 
-The reference's entire runtime is C++; here the TPU compute path is
+The reference's entire runtime is C++; here the device compute path is
 JAX/XLA/Pallas and the host-side runtime hot spots are native:
 
 * waveform ingestion (lin16/A-law decode + DC/scale/dither, srec.cpp:709-791)

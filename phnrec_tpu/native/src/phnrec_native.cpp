@@ -1,6 +1,6 @@
-// Native runtime kernels for the TPU-native PhnRec framework.
+// Native host runtime kernels for the PhnRec framework.
 //
-// The reference implements its whole runtime in C++; the TPU build keeps
+// The reference implements its whole runtime in C++; this build keeps
 // the *compute* path in JAX/XLA/Pallas and implements the host-side
 // runtime (waveform ingestion, HTK byte-order conversion, label
 // backtracking, hypothesis alignment) natively here, exposed to Python

@@ -1,6 +1,6 @@
 """Network/lattice surgery — the Net.cc toolbox of the bundled STK.
 
-TPU-note: these are pure graph algorithms that run once at network-build
+Note: these are pure graph algorithms that run once at network-build
 time on the host (STK runs them inside ReadSTKNetwork's expansion pipeline,
 Net_IO.cc; the results feed the compiled dense decoder in
 decoder/stknet.py).  Implemented equivalents:

@@ -95,7 +95,8 @@ class RunMetrics:
 
 
 def aggregate_across_hosts(metrics: RunMetrics) -> Dict[str, float]:
-    """Sum counters over all host processes (ICI/DCN all-gather); on a
+    """Sum counters over all host processes (an all-gather across
+    processes); on a
     single process this is the identity."""
     import jax
 

@@ -2,7 +2,7 @@
 
 The reference reads each file synchronously inside its serial decode loop
 (LoadWaveform, srec.cpp:1384-1422 called from ProcessFile srec.cpp:1113).
-On TPU the device step is so much faster than disk+decode that a serial
+On the accelerator the device step is so much faster than disk+decode that a serial
 loop would leave the chip idle most of the time, so the loader pipelines:
 
     disk read -> native waveform decode -> pad/bucket   (worker threads)

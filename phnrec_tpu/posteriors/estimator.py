@@ -1,13 +1,13 @@
 """Posterior estimators: the four Traps systems (traps.cpp:572-586).
 
-The TPU equivalent of Traps (traps.cpp): mel params [T, nbanks] ->
+The device equivalent of Traps (traps.cpp): mel params [T, nbanks] ->
 phoneme-state posteriors [T, n_out] as one jitted tensor program.
 
   * LCRC (the shipped system, LCRCEstimator):
         L, R   = LCRC assembly (stc.py)                  2 small GEMMs
-        lo, ro = band MLPs (mlp.py)                      4 MXU GEMMs
+        lo, ro = band MLPs (mlp.py)                      4 GEMMs
         m      = ln(concat(lo, ro))  (traps.cpp:435-461, sLn dspc.h:155-160)
-        post   = merger MLP                              2 MXU GEMMs
+        post   = merger MLP                              2 GEMMs
   * 3BT / 1BT (TrapsEstimator): one temporal-trap net per mel band
     (3BT skips the top two bands, traps.cpp:97-99); each net consumes the
     band's trap_len-frame trajectory, optionally Hamming-windowed

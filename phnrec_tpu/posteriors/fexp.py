@@ -8,14 +8,14 @@ double and reads the double back; the low word is an uninitialized stack
 value (up to 2^-20 relative noise in the reference itself — two oracle
 builds differ by ~3e-6 in final posteriors).
 
-TPU-native equivalent: decode the constructed double analytically with the
+Device equivalent: decode the constructed double analytically with the
 low word = 0,
 
     i = trunc(A*y) + K;  E = i >> 20;  M = i & 0xFFFFF
     fexp(y) = 2^(E-1023) * (1 + M * 2^-20)
 
 which is exact float32 arithmetic (M has 20 bits < f32's 24-bit mantissa)
-and pure VPU work.  ``fast=False`` paths use the hardware exp instead —
+and pure elementwise work.  ``fast=False`` paths use the hardware exp instead —
 preferable when bit-parity with reference binaries is not needed.
 """
 

@@ -5,18 +5,16 @@ normalization ``(x - mean) * dev`` (nn.cpp:702-716), two GEMMs against
 transposed weight matrices with biases pre-added (nn.cpp:721-794), fast
 sigmoid/softmax (nn.cpp:796-855 under NN_FAST_EXP).
 
-TPU-first design: the whole bunch machinery disappears — one [T, n_inp]
-tensor goes through two MXU GEMMs for arbitrary T.  Weights are padded to
-multiples of 128 on the hidden/output axes (zero rows/cols, which do not
-change results) so the MXU tiles them without remainder handling.  All
-matmuls accumulate in f32 (Precision.HIGHEST).
+Here the whole bunch machinery disappears — one [T, n_inp] tensor goes
+through two GEMMs for arbitrary T.  Weights are zero-padded to multiples
+of 8 on every axis (zero rows/cols, which do not change results).  The
+GEMM precision is the process-wide mode of precision.py.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -35,7 +33,7 @@ def _pad_to(x: np.ndarray, rows: int, cols: int | None = None) -> np.ndarray:
     return out
 
 
-def _round_up(n: int, m: int = 128) -> int:
+def _round_up(n: int, m: int = 8) -> int:
     return (n + m - 1) // m * m
 
 
@@ -56,25 +54,16 @@ class MLPDevice(NamedTuple):
     n_out: int
 
 
-def to_device(p: MLPParams, pad: int | None = None) -> MLPDevice:
-    """Pad + transpose parameters for the TPU forward pass.
+def to_device(p: MLPParams) -> MLPDevice:
+    """Pad + transpose parameters for the device forward pass.
 
     Padding with zeros is exact: extra input columns are multiplied by
     dev=0 on zero data, extra hidden units get sigmoid(0)=0.5 but their
     outgoing weights are 0, extra output columns are sliced off before
     softmax.
-
-    Pad granularity: 8 (sublane) by default — XLA's own layout handling
-    of the ragged lane dimension beats hand-padding every axis to 128
-    (band net at batch 765k rows: 24.3 ms vs 27.9 ms, measured
-    2026-08-21); the opt-in Pallas kernel needs 128-multiples, so the
-    env opt-in switches the default.
     """
-    if pad is None:
-        import os
-        pad = 128 if os.environ.get("PHNREC_TPU_PALLAS_MLP") == "1" else 8
-    i_p, h_p, o_p = (_round_up(p.n_inp, pad), _round_up(p.n_hid, pad),
-                     _round_up(p.n_out, pad))
+    i_p, h_p, o_p = (_round_up(p.n_inp), _round_up(p.n_hid),
+                     _round_up(p.n_out))
     return MLPDevice(
         w1=jnp.asarray(_pad_to(p.w1.T.astype(np.float32), i_p, h_p)),
         b1=jnp.asarray(_pad_to(p.b1, h_p)),
@@ -88,66 +77,19 @@ def to_device(p: MLPParams, pad: int | None = None) -> MLPDevice:
     )
 
 
-def _use_pallas_default() -> bool:
-    """Whether forward() routes through the fused Pallas kernel.
-
-    Decision (measured, not a vibe): the plain XLA path is the default.
-
-    * 2026-08-20, v5e chip, batch 1024 x 759 frames, CZ N1500 nets: XLA's
-      own fusion of the norm+GEMM+sigmoid+GEMM+softmax chain beat the
-      hand-written kernel at every precision (HIGHEST: 0.179 s vs 0.188 s;
-      HIGH: 0.118 s vs 0.132 s per batch).
-    * 2026-08-21, per-net head-to-head at 765k rows, Precision.HIGH:
-      XLA with sublane (8) padding 24.3 ms; XLA with 128-padding 27.9 ms;
-      Pallas kernel 27.2 ms at its best tile (512; tile 2048 exceeds the
-      16 MB VMEM budget).
-    * 2026-08-21 (round 4), honest dispatch-stream timing: the FULL
-      3-net stage (74.3 ms at 765k rows) runs within 2% of the bare sum
-      of its six GEMMs (76.0 ms) — the chain is at its fused bound, and
-      the 1.78x gap to an ideal-shape GEMM of equal MACs is the model's
-      narrow dims (K=165/280, N=138), not implementation.  Full analysis
-      in docs/MLP_ROOFLINE.md.
-
-    The kernel stays an opt-in (PHNREC_TPU_PALLAS_MLP=1 or
-    use_pallas=True, weights padded to 128) and is covered by
-    interpret-mode parity tests."""
-    import os
-    return os.environ.get("PHNREC_TPU_PALLAS_MLP", "") == "1" and (
-        jax.default_backend() == "tpu")
-
-
 def forward(net: MLPDevice, x: jnp.ndarray, fast: bool = True,
-            apply_softmax: bool = True,
-            use_pallas: bool | None = None) -> jnp.ndarray:
+            apply_softmax: bool = True) -> jnp.ndarray:
     """[..., n_inp or n_inp_pad] -> [..., n_out] posteriors.
 
     Hidden-layer zero-padding note: the reference zeroes padded sigmoid
     slots (nn.cpp:813-818); here padded w1 columns give pre-act b1=0 ->
     sigmoid 0.5, but padded w2 rows are zero so the contribution is 0
     either way.
-
-    use_pallas=None auto-selects the fused VMEM-resident kernel
-    (ops/pallas_mlp.py) on TPU backends.
     """
     n_inp_pad = net.w1.shape[0]
     if x.shape[-1] != n_inp_pad:
         pad = n_inp_pad - x.shape[-1]
         x = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, pad)])
-    if use_pallas is None:
-        use_pallas = _use_pallas_default()
-    if use_pallas:
-        if net.w1.shape[0] % 128 or net.w1.shape[1] % 128 or \
-                net.w2.shape[1] % 128:
-            raise ValueError(
-                "the fused Pallas kernel needs 128-multiple padding; "
-                "build the net with mlp.to_device(p, pad=128) (set "
-                "PHNREC_TPU_PALLAS_MLP=1 before loading to make it the "
-                "default)")
-        from phnrec_tpu.ops.pallas_mlp import mlp_forward_fused
-        o = mlp_forward_fused(x, net.mean, net.dev, net.w1, net.b1,
-                              net.w2, net.b2, n_out=net.n_out, fast=fast,
-                              apply_softmax=apply_softmax)
-        return o[..., : net.n_out]
     xn = (x - net.mean) * net.dev
     h = fexp.sigmoid(jnp.dot(xn, net.w1, precision=precision.get()) + net.b1, fast)
     o = jnp.dot(h, net.w2, precision=precision.get()) + net.b2

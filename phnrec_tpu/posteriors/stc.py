@@ -13,7 +13,7 @@ frame at a time.  For the LCRC system (traps.cpp:285-342):
     sqrt(2/n)*cos(pi/n*k*(j+0.5)), k=1..10 (dspc.h:206-221),
   * features are laid out bank-major: [bank0 c0,d1..d10, bank1 ...].
 
-TPU-first: the whole per-frame sliding machinery collapses into
+Here the whole per-frame sliding machinery collapses into
 
   ctx[t, j, b] = params[clip(t + j - 15, 0, T-1), b]     (one gather)
   feat_side[t, b, k] = sum_j ctx[t, off+j, b] * M_side[j, k]
@@ -104,7 +104,7 @@ class LCRCAssembler:
                 n_valid: jnp.ndarray | None = None) -> jnp.ndarray:
         """[T, B] mel params -> [T, trap_len, B] clamped sliding context.
 
-        Gather-free formulation (row gathers are slow on TPU): rows at or
+        Gather-free formulation: rows at or
         beyond ``n_valid`` are first overwritten with row ``n_valid - 1``
         (the repeat-last-frame tail, srec.cpp:877-927), then the buffer is
         edge-replicated by ``shift`` rows on both ends and the 31 context

@@ -1,4 +1,4 @@
-"""TPU-native HMM training / re-estimation.
+"""HMM training / re-estimation on the accelerator.
 
 The bundled STK toolkit carries complete training machinery that phnrec
 itself never calls: exact forward-backward (Network::ForwardBackward,
@@ -9,10 +9,10 @@ ML / MMI extended-Baum-Welch parameter updates (ModelSet::UpdateFromAccums,
 STKLib/Models.h:473,541; update types AT_ML/AT_MPE/AT_MMI/AT_MCE,
 Viterbi.h:63-70).
 
-This package is the TPU-first equivalent: an utterance's transcription is
+This package is the tensor-program equivalent: an utterance's transcription is
 compiled into a dense linear composite HMM (train.graph), forward-backward
 and Viterbi alignment run as batched `lax.scan`s over frames with the
-transition pass expressed as [S, S] log-matmuls on the MXU (train.fb),
+transition pass expressed as [S, S] log-matmuls (train.fb),
 statistics land in fixed-shape accumulator pytrees that `psum` across a
 data mesh (train.accum), and parameter updates are pure functions over
 those accumulators (train.update: ML, extended-Baum-Welch MMI, MCE

@@ -1,6 +1,6 @@
 """Fixed-shape re-estimation accumulators + utterance accumulation.
 
-TPU-native equivalent of STK's per-mixture/per-transition accumulators
+Device equivalent of STK's per-mixture/per-transition accumulators
 (allocated by ModelSet::AllocateAccumulatorsForXformStats and filled by
 ReestState / the FWBWRet machinery in STKLib/Viterbi.cc:1124-1240): one
 pytree of dense arrays shaped by the ModelIndex, identical for every
@@ -20,7 +20,7 @@ occupancy, first- and second-order sums):
 The transition xi sums use the matmul identity
   xi_sum[i, j] = exp(log_A[i, j]) * sum_t a~_t[i] * b~_{t+1}[j]
 with per-frame renormalized a~/b~ (both bounded by construction), so the
-whole T-frame xi accumulation is ONE [S, T] x [T, S] MXU GEMM instead of a
+whole T-frame xi accumulation is ONE [S, T] x [T, S] GEMM instead of a
 T-step loop.
 """
 

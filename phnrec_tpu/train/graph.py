@@ -3,7 +3,7 @@
 STK builds a left-to-right network from each utterance's transcription and
 runs token passing / forward-backward over it (the AlignmentType machinery
 around Network::ForwardBackward, STKLib/Viterbi.cc:2115+).  Here the same
-composite collapses into dense tensors sized for the MXU:
+composite collapses into dense tensors:
 
   * ``log_A [S, S]``      transition log-probs between the S concatenated
                           emitting states (within-HMM rows come straight

@@ -3,7 +3,7 @@
 The AT_MPE accumulation type of STK (Viterbi.h:67; the PhoneAccuracy
 annotation machinery in Net.cc feeds it) weights denominator-lattice
 occupancies by how much each path's local accuracy deviates from the
-lattice average.  The TPU-native formulation here is the frame-state-level
+lattice average.  The tensor formulation here is the frame-state-level
 variant (sMBR): over a denominator graph (typically the phoneme loop),
 
     kappa_t(s) = gamma_t(s) * (A(s, t) - Abar(t))

@@ -1,6 +1,6 @@
 """ASCII heatmap dumper for debugging tensors.
 
-TPU-native stand-in for STKLib's `imagesc` terminal visualizer
+Stand-in for STKLib's `imagesc` terminal visualizer
 (STKLib/imagesc.{C,h}): renders a 2-D array as a character/ANSI-color
 heatmap scaled to the data range, with an optional transform (e.g. log).
 Useful for eyeballing mel params, LCRC features, posteriors, or Viterbi

@@ -2,7 +2,7 @@
 
 The reference has no profiling machinery at all — only compile-time debug
 printf paths (SURVEY.md section 5).  This is the from-scratch observability
-layer for the TPU build:
+layer for this build:
 
 * ``StageTimer``: named wall-clock accumulators around pipeline stages
   (mel, stc, mlp, viterbi, backtrack, io), with correct handling of JAX's

@@ -11,7 +11,7 @@ stkstream wrappers (stkstream.{h,tcc}):
                           filter='gunzip -c $' reads gzipped feature files
                           transparently
 
-Host-side file plumbing only; never on the TPU compute path.
+Host-side file plumbing only; never on the device compute path.
 """
 
 from __future__ import annotations

@@ -12,16 +12,25 @@ import pytest
 from phnrec_tpu.io.labels import MLFWriter, read_mlf, read_rec
 from phnrec_tpu.pipeline import SpeechRec
 
-from conftest import package_dir
+from conftest import seeded_audio, seeded_package, small_spec
 
-TEST_RAW = "/root/reference/test.raw"
+
+def _cz_package(tmp_path, fmt: str = "lin16"):
+    """A seeded package at the CZ widths (small hidden layer) with the CZ
+    package's sentence mean norm; ``fmt`` sets source/format."""
+    pkg = seeded_package(tmp_path / f"pkg_{fmt}",
+                         spec=small_spec(sent_mean_norm=True))
+    cfg = os.path.join(pkg, "config")
+    text = open(cfg).read().replace("format=lin16", f"format={fmt}")
+    open(cfg, "w").write(text)
+    return pkg
 
 
 def _mk_corpus(tmp_path, fmt: str):
     """Mixed-length corpus; alaw content is arbitrary bytes (both paths
     decode the SAME bytes, which is what the equivalence tests)."""
     rng = np.random.default_rng(7)
-    src = np.frombuffer(open(TEST_RAW, "rb").read(), np.int16)
+    src = np.frombuffer(seeded_audio(4.0), np.int16)
     durations = [1.0, 7.49, 0.4, 2.2, 0.015, 0.6]   # incl. sub-frame
     paths = []
     for i, d in enumerate(durations):
@@ -37,19 +46,6 @@ def _mk_corpus(tmp_path, fmt: str):
     return paths
 
 
-def _alaw_package(tmp_path):
-    src = package_dir("cz")
-    pkg = tmp_path / "pkg"
-    pkg.mkdir()
-    for entry in os.listdir(src):
-        if entry != "config":
-            os.symlink(os.path.join(src, entry), pkg / entry)
-    cfg = open(os.path.join(src, "config")).read()
-    cfg = cfg.replace("format=lin16", "format=alaw")
-    (pkg / "config").write_text(cfg)
-    return str(pkg)
-
-
 def _serial_mlf(sr, paths, mlf_path):
     with MLFWriter(mlf_path) as mlf:
         for p in paths:
@@ -59,8 +55,7 @@ def _serial_mlf(sr, paths, mlf_path):
 
 @pytest.mark.parametrize("fmt", ["lin16", "alaw"])
 def test_batched_filelist_matches_serial_mlf(tmp_path, fmt):
-    pkg = package_dir("cz") if fmt == "lin16" else _alaw_package(tmp_path)
-    sr = SpeechRec(pkg)
+    sr = SpeechRec(_cz_package(tmp_path, fmt))
     assert sr._can_batch_list("wf", "str")
     paths = _mk_corpus(tmp_path, fmt)
     lst = tmp_path / "list"
@@ -82,7 +77,7 @@ def test_batched_filelist_matches_serial_mlf(tmp_path, fmt):
 
 
 def test_batched_filelist_rec_files(tmp_path):
-    sr = SpeechRec(package_dir("cz"))
+    sr = SpeechRec(_cz_package(tmp_path))
     paths = _mk_corpus(tmp_path, "lin16")
     lst = tmp_path / "list"
     lst.write_text("\n".join(paths) + "\n")
@@ -99,7 +94,7 @@ def test_batched_filelist_rec_files(tmp_path):
 
 def test_stkint_list_batched_matches_serial(tmp_path, monkeypatch):
     """stkint wf->str lists route through the batched posterior stack +
-    NetworkDecoder.decode_batch (VERDICT r4 item 4); the MLF must be
+    NetworkDecoder.decode_batch; the MLF must be
     byte-for-byte the serial per-file loop's."""
     from tests.test_stk_streaming import _stkint_package
 
@@ -122,9 +117,9 @@ def test_stkint_list_batched_matches_serial(tmp_path, monkeypatch):
 def test_serial_stages_bucket_compiles(tmp_path):
     """The serial per-file stages pad T to a 256-frame quantum: many
     distinct utterance lengths inside one bucket share ONE compiled
-    program per stage (VERDICT r4 item 4: no per-length recompiles)."""
-    sr = SpeechRec(package_dir("cz"))
-    src = np.fromfile("/root/reference/test.raw", dtype="<i2")
+    program per stage (no per-length recompiles)."""
+    sr = SpeechRec(_cz_package(tmp_path))
+    src = np.frombuffer(seeded_audio(3.0), dtype="<i2")
     before = (SpeechRec._wave2par._cache_size(),
               SpeechRec._par2post._cache_size(),
               SpeechRec._post2segs._cache_size())

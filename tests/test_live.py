@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from tests.conftest import package_dir
+from tests.conftest import seeded_audio, seeded_package
 from phnrec_tpu.io.labels import Label
 from phnrec_tpu.live import format_live, run_live
 from phnrec_tpu.pipeline import SpeechRec
@@ -19,17 +19,17 @@ def test_format_live_variants():
         format_live(lab, "bogus")
 
 
-def test_run_live_file_replay(reference_dir, tmp_path):
+def test_run_live_file_replay(tmp_path):
     """Replay a raw file through the live path; the emitted stream must
     equal the final labels, and those must equal the offline decode.
-    Uses the EN package: its config has no sentence norm, so the online
-    and offline paths are comparable (with sent_mean_norm the reference's
-    two paths legitimately differ: online norm vs sentence norm,
+    Uses a seeded package without sentence norm, so the online and
+    offline paths are comparable (with sent_mean_norm the reference's two
+    paths legitimately differ: online norm vs sentence norm,
     srec.cpp:793-849 vs 1492-1592)."""
-    raw = open(f"{reference_dir}/test.raw", "rb").read()[: 16000 * 2 * 3]
+    raw = seeded_audio(3.0)
     src = tmp_path / "live.raw"
     src.write_bytes(raw)
-    sr = SpeechRec(package_dir("en"))
+    sr = SpeechRec(seeded_package(tmp_path / "pkg"))
     out = []
     labels = run_live(sr, out_format="str", source=str(src),
                       emit=out.append)
@@ -114,7 +114,7 @@ def test_run_live_pipe_is_lossless(tmp_path):
     from phnrec_tpu.live import run_live
     from phnrec_tpu.pipeline import SpeechRec
 
-    raw = open("/root/reference/test.raw", "rb").read()[: 16000 * 2 * 3]
+    raw = seeded_audio(3.0)
     rfd, wfd = _os.pipe()
 
     def writer():
@@ -123,7 +123,7 @@ def test_run_live_pipe_is_lossless(tmp_path):
 
     t = threading.Thread(target=writer)
     t.start()
-    sr = SpeechRec(package_dir("en"))
+    sr = SpeechRec(seeded_package(tmp_path / "pkg"))
     # replay the same bytes through a file for the expected labels
     f = tmp_path / "ref.raw"
     f.write_bytes(raw)

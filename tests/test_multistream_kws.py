@@ -10,24 +10,13 @@ from phnrec_tpu.multistream import MultiStreamKWS, MultiStreamRecognizer
 from phnrec_tpu.pipeline import SpeechRec
 from phnrec_tpu.streaming import StreamingRecognizer
 
+from tests.conftest import seeded_audio, seeded_package
 from tests.test_stk_streaming import _stkint_package
-
-TEST_RAW = "/root/reference/test.raw"
 
 
 @pytest.fixture(scope="module")
 def kws_sr(tmp_path_factory):
-    tmp_path = tmp_path_factory.mktemp("kwspkg")
-    kws = tmp_path / "kwlist"
-    kws.write_text("greasy\nwash\n")
-    lex = tmp_path / "kwlex"
-    lex.write_text("greasy\tg r iy s iy\nwash\tw aa sh\n")
-    extra = (
-        "\n[decoder]\nmode=kws\n"
-        "[networks]\ngen_kws_net=true\ndefault=$T/kwsnet\n"
-        f"[dicts]\nkeyword_list={kws}\nlexicon1={lex}\n"
-    )
-    pkg = _stkint_package(tmp_path, extra)
+    pkg = _stkint_package(tmp_path_factory.mktemp("kwspkg"), decoder="kws")
     sr = SpeechRec(pkg)
     assert sr.stk_decoder is not None and sr.stk_decoder.mode == "kws"
     return sr
@@ -35,7 +24,7 @@ def kws_sr(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def raw_bytes():
-    return open(TEST_RAW, "rb").read()[: 16000 * 2 * 3]
+    return seeded_audio(3.0)
 
 
 def _key(labels):
@@ -94,11 +83,10 @@ def test_multistream_kws_live_polling(kws_sr, raw_bytes):
         assert _key(seen[i]) == _key(final[i])
 
 
-def test_multistream_kws_rejects_wrong_mode(kws_sr):
+def test_multistream_kws_rejects_wrong_mode(kws_sr, tmp_path):
     with pytest.raises(ValueError):
         MultiStreamRecognizer(kws_sr, n_streams=2)
-    sr_plain = SpeechRec(
-        "/root/reference/PHN_EN_TIMIT_LCRC_N500")
+    sr_plain = SpeechRec(seeded_package(tmp_path / "plain"))
     with pytest.raises(ValueError):
         MultiStreamKWS(sr_plain, n_streams=2)
 
@@ -117,6 +105,17 @@ def test_multistream_kws_mesh(kws_sr, raw_bytes):
     got, want = ms.finish(), ref.finish()
     for i in range(8):
         _assert_hits_equal(got[i], want[i], f"stream {i}")
+
+
+def test_kws_selects_xla_dense_step(kws_sr):
+    """KWS serving runs the XLA dense network step (DenseKWSScan) on
+    every backend, and only PHNREC_TPU_DENSE_KWS=0 or a large network
+    selects the edge-list scan."""
+    from phnrec_tpu.decoder.stknet import DenseKWSScan
+
+    ms = MultiStreamKWS(kws_sr, n_streams=2, block_frames=32)
+    assert isinstance(ms._dense, DenseKWSScan)
+    assert not hasattr(ms, "_pallas_net")
 
 
 def test_dense_scan_matches_edge_list(kws_sr, raw_bytes, monkeypatch):

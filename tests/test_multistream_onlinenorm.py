@@ -4,8 +4,6 @@ freeze, apply — norm.cpp:92-234) rides in the fused dispatch carry and
 must reproduce the single-stream StreamingRecognizer (whose estimator is
 the host state machine) label-for-label."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -13,28 +11,19 @@ from phnrec_tpu.multistream import MultiStreamRecognizer
 from phnrec_tpu.pipeline import SpeechRec
 from phnrec_tpu.streaming import StreamingRecognizer
 
-from conftest import package_dir
-
-TEST_RAW = "/root/reference/test.raw"
+from conftest import seeded_audio, seeded_package
 
 
 def _onorm_package(tmp_path, extra=""):
-    src = package_dir("en")
-    pkg = tmp_path / "pkg"
-    pkg.mkdir(parents=True)
-    for entry in os.listdir(src):
-        if entry != "config":
-            os.symlink(os.path.join(src, entry), pkg / entry)
-    cfg = open(os.path.join(src, "config")).read()
-    (pkg / "config").write_text(
-        cfg + "\n[onlinenorm]\nestim_interval=50\nmean_norm=true\n"
-              "var_norm=true\n" + extra)
-    return str(pkg)
+    return seeded_package(
+        tmp_path / "pkg",
+        extra_cfg="[onlinenorm]\nestim_interval=50\nmean_norm=true\n"
+                  "var_norm=true\n" + extra)
 
 
 @pytest.fixture(scope="module")
 def raw_bytes():
-    return open(TEST_RAW, "rb").read()[: 16000 * 2 * 3]
+    return seeded_audio(3.0)
 
 
 def _key(labels):

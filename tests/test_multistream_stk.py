@@ -11,9 +11,8 @@ from phnrec_tpu.multistream import MultiStreamStkDecode
 from phnrec_tpu.pipeline import SpeechRec
 from phnrec_tpu.streaming import StreamingRecognizer
 
+from tests.conftest import seeded_audio
 from tests.test_stk_streaming import _stkint_package
-
-TEST_RAW = "/root/reference/test.raw"
 
 
 @pytest.fixture(scope="module")
@@ -26,7 +25,7 @@ def stk_sr(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def raw_bytes():
-    return open(TEST_RAW, "rb").read()[: 16000 * 2 * 3]
+    return seeded_audio(3.0)
 
 
 def _key(labels):
@@ -163,21 +162,11 @@ def test_multistream_stk_delayed_input_xform(stk_sr, raw_bytes):
 
 def test_multistream_kws_delayed_input_xform(tmp_path, raw_bytes):
     """MultiStreamKWS with a delayed <InputXform>: per-stream hits must
-    equal the single-stream KWS recognizer (the declared capability gap
-    closed — VERDICT r4 missing #3)."""
+    equal the single-stream KWS recognizer."""
     from phnrec_tpu.io.xform import Xform, XformInstance
     from phnrec_tpu.multistream import MultiStreamKWS
 
-    kws = tmp_path / "kwlist"
-    kws.write_text("greasy\nwash\n")
-    lex = tmp_path / "kwlex"
-    lex.write_text("greasy\tg r iy s iy\nwash\tw aa sh\n")
-    extra = (
-        "\n[decoder]\nmode=kws\n"
-        "[networks]\ngen_kws_net=true\ndefault=$T/kwsnet\n"
-        f"[dicts]\nkeyword_list={kws}\nlexicon1={lex}\n"
-    )
-    sr = SpeechRec(_stkint_package(tmp_path, extra))
+    sr = SpeechRec(_stkint_package(tmp_path, decoder="kws"))
     D = sr.estimator.merger.n_out
     M = np.concatenate([0.2 * np.eye(D), 0.8 * np.eye(D)],
                        axis=1).astype(np.float32)

@@ -17,8 +17,9 @@ pytestmark = pytest.mark.skipif(
 
 
 def test_convert_waveform_lin16_parity():
-    from phnrec_tpu.io import audio
-    raw = open("/root/reference/test.raw", "rb").read()
+    from tests.conftest import seeded_audio
+
+    raw = seeded_audio(3.0)
     w_n, n_n = native.convert_waveform(raw, "lin16", scale=0.5, dc_shift=2.0)
     # bypass the native dispatch inside convert_waveform via monkey state
     sig = np.frombuffer(raw, dtype="<i2").astype(np.float32)

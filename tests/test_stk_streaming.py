@@ -3,45 +3,27 @@ decoder, incl. live KWS — the StkInterface::ProcessFrame semantics
 (stkinterface.cpp:214-289): per-frame network steps with fixed-lag word
 emission in decode mode and LRTrace candidate streaming in KWS mode.
 
-Builds an stkint variant of the EN package by symlinking its resources
-into a tmp dir and rewriting the config's decoder/type.
+Runs on a seeded stkint package (phnrec_tpu.synth) at the CZ package's
+widths with a small hidden layer and no sentence norm.
 """
-
-import os
 
 import numpy as np
 import pytest
 
-from tests.conftest import package_dir
+from tests.conftest import seeded_audio, seeded_package
 from phnrec_tpu.live import run_live
 from phnrec_tpu.pipeline import SpeechRec
 from phnrec_tpu.streaming import StreamingRecognizer
 
 
-def _stkint_package(tmp_path, extra_cfg=""):
-    src = package_dir("en")
-    pkg = tmp_path / "pkg"
-    pkg.mkdir()
-    for entry in os.listdir(src):
-        if entry != "config":
-            os.symlink(os.path.join(src, entry), pkg / entry)
-    lines = []
-    for line in open(os.path.join(src, "config")):
-        if line.startswith("type=") and "phnrec_dec" in line or \
-                line.strip() == "type=phndec":
-            line = "type=stkint\n"
-        lines.append(line)
-    cfg = "".join(lines)
-    # the [decoder] section's type key: rewrite whichever value it has
-    import re
-    cfg = re.sub(r"(?m)^type=(phndec|phnrec_dec)$", "type=stkint", cfg)
-    (pkg / "config").write_text(cfg + extra_cfg)
-    return str(pkg)
+def _stkint_package(tmp_path, extra_cfg="", decoder="stkint"):
+    return seeded_package(tmp_path / "pkg", decoder=decoder,
+                          extra_cfg=extra_cfg)
 
 
 @pytest.fixture(scope="module")
 def wave_bytes():
-    return open("/root/reference/test.raw", "rb").read()[: 16000 * 2 * 3]
+    return seeded_audio(3.0)
 
 
 def test_streaming_stkint_matches_offline(tmp_path, wave_bytes):
@@ -139,20 +121,9 @@ def test_streaming_stkint_commit_bounds_memory(tmp_path, wave_bytes):
 
 
 def test_live_kws_matches_offline(tmp_path, wave_bytes):
-    """Live-mode KWS chunks must yield the same hits as offline kws_scan
-    (VERDICT r2 item 3 done-criterion)."""
-    src = package_dir("en")
-    # keyword list in EN phonemes; 'sil' bracket words appear everywhere
-    kws = tmp_path / "kwlist"
-    kws.write_text("greasy\nwash\n")
-    lex = tmp_path / "kwlex"
-    lex.write_text("greasy\tg r iy s iy\nwash\tw aa sh\n")
-    extra = (
-        "\n[decoder]\nmode=kws\n"
-        "[networks]\ngen_kws_net=true\ndefault=$T/kwsnet\n"
-        f"[dicts]\nkeyword_list={kws}\nlexicon1={lex}\n"
-    )
-    pkg = _stkint_package(tmp_path, extra)
+    """Live-mode KWS chunks must yield the same hits as offline
+    kws_scan."""
+    pkg = _stkint_package(tmp_path, decoder="kws")
     sr = SpeechRec(pkg)
     assert sr.stk_decoder is not None and sr.stk_decoder.mode == "kws"
 

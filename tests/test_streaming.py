@@ -10,27 +10,29 @@ from phnrec_tpu.normalization import OnlineNorm
 from phnrec_tpu.pipeline import SpeechRec
 from phnrec_tpu.streaming import StreamingRecognizer
 
-from conftest import package_dir
-
-TEST_RAW = "/root/reference/test.raw"
+from conftest import seeded_audio, seeded_package
 
 
 @pytest.fixture(scope="module")
-def sr_en():
-    # EN has no sentence norm, so streaming and offline are comparable
-    return SpeechRec(package_dir("en"))
+def sr(tmp_path_factory):
+    # a seeded package without sentence norm, so streaming and offline
+    # are comparable
+    return SpeechRec(seeded_package(tmp_path_factory.mktemp("pkg")))
 
 
 @pytest.fixture(scope="module")
-def offline_labels(sr_en):
-    return sr_en.process_offline("wf", "str",
-                                 open(TEST_RAW, "rb").read()).labels
+def raw():
+    return seeded_audio(5.0)
+
+
+@pytest.fixture(scope="module")
+def offline_labels(sr, raw):
+    return sr.process_offline("wf", "str", raw).labels
 
 
 @pytest.mark.parametrize("chunk_bytes", [4096, 1000, 37])
-def test_streaming_matches_offline(sr_en, offline_labels, chunk_bytes):
-    raw = open(TEST_RAW, "rb").read()
-    rec = StreamingRecognizer(sr_en, block_frames=64)
+def test_streaming_matches_offline(sr, raw, offline_labels, chunk_bytes):
+    rec = StreamingRecognizer(sr, block_frames=64)
     for i in range(0, len(raw), chunk_bytes):
         rec.process(raw[i : i + chunk_bytes])
     labels = rec.finish()
@@ -41,9 +43,8 @@ def test_streaming_matches_offline(sr_en, offline_labels, chunk_bytes):
         assert a.score == pytest.approx(b.score, abs=1e-3)
 
 
-def test_partial_results_are_prefix(sr_en, offline_labels):
-    raw = open(TEST_RAW, "rb").read()
-    rec = StreamingRecognizer(sr_en, block_frames=64)
+def test_partial_results_are_prefix(sr, raw, offline_labels):
+    rec = StreamingRecognizer(sr, block_frames=64)
     half = len(raw) // 2
     rec.process(raw[:half])
     part = rec.results(settled_only=True)
@@ -120,21 +121,20 @@ def test_online_norm_multi_channel_independent():
     np.testing.assert_array_equal(out_b, ref_b.process_block(b))
 
 
-def test_streaming_channel_config_and_switch(sr_en):
+def test_streaming_channel_config_and_switch(sr):
     """The onlinenorm/channel extension key selects the initial channel
     and StreamingRecognizer.set_channel switches mid-stream."""
-    rec = StreamingRecognizer(sr_en)
+    rec = StreamingRecognizer(sr)
     assert rec.online_norm.cur == \
-        sr_en.cfg.get_int("onlinenorm", "channel") == 0
+        sr.cfg.get_int("onlinenorm", "channel") == 0
     rec.set_channel(3)
     assert rec.online_norm.cur == 3 and 3 in rec.online_norm.channels
 
 
-def test_commit_horizon_single_stream(sr_en, offline_labels):
+def test_commit_horizon_single_stream(sr, raw, offline_labels):
     """Opt-in fixed-lag commit: history blocks drop as labels settle and
     the stitched result equals the full decode."""
-    raw = open(TEST_RAW, "rb").read()
-    rec = StreamingRecognizer(sr_en, block_frames=32, commit_horizon=60)
+    rec = StreamingRecognizer(sr, block_frames=32, commit_horizon=60)
     max_blocks = 0
     for i in range(0, len(raw), 4096):
         rec.process(raw[i : i + 4096])
@@ -142,7 +142,7 @@ def test_commit_horizon_single_stream(sr_en, offline_labels):
         rec.results(settled_only=True)    # live polling mid-commit
     labels = rec.finish()
     assert rec._frame0 > 0, "no commit ever happened"
-    full = StreamingRecognizer(sr_en, block_frames=32)
+    full = StreamingRecognizer(sr, block_frames=32)
     full.process(raw)
     full.finish()
     assert max_blocks < len(full._hist[0]), "history did not stay bounded"
@@ -151,7 +151,7 @@ def test_commit_horizon_single_stream(sr_en, offline_labels):
     assert key(labels) == key(offline_labels)
 
 
-def test_commit_horizon_forced_split(sr_en):
+def test_commit_horizon_forced_split(sr):
     """A segment spanning the whole horizon (constant audio -> one long
     phone) must FORCE a boundary (the reference's ring cannot hold a
     longer segment either): history stays bounded, coverage stays
@@ -160,13 +160,13 @@ def test_commit_horizon_forced_split(sr_en):
     rng = np.random.default_rng(2)
     # low-level constant-ish noise: the loop settles into long segments
     raw = (rng.normal(0, 40, 16000 * 6).astype("<i2")).tobytes()
-    com = StreamingRecognizer(sr_en, block_frames=32, commit_horizon=40)
+    com = StreamingRecognizer(sr, block_frames=32, commit_horizon=40)
     max_blocks = 0
     for i in range(0, len(raw), 4096):
         com.process(raw[i : i + 4096])
         max_blocks = max(max_blocks, len(com._hist[0]))
     got = com.finish()
-    full = StreamingRecognizer(sr_en, block_frames=32)
+    full = StreamingRecognizer(sr, block_frames=32)
     full.process(raw)
     want = full.finish()
     assert com._frame0 > 0

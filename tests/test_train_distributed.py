@@ -39,7 +39,7 @@ def test_psum_accumulators_over_mesh(models):
     for i in range(n_dev):
         ref = accumulate_utterance(g, ref, xs[i], T)
 
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
     def shard_fn(x):

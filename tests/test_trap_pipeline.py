@@ -12,6 +12,8 @@ import pytest
 
 from phnrec_tpu.io.weights import MLPParams, save_nbin
 
+from conftest import seeded_audio
+
 TRAP_LEN = 31
 NBANKS = 5
 PHONEMES = ["aa", "bb", "cc"]           # +1 implicit garbage class
@@ -74,7 +76,7 @@ def pkg(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def wave_bytes():
-    return open("/root/reference/test.raw", "rb").read()[: 8000 * 2 * 4]
+    return seeded_audio(4.0)
 
 
 def test_offline_batch_streaming_agree(pkg, wave_bytes):

@@ -6,7 +6,7 @@ negate traps.cpp:426-427, and the no-ln 1BT_DCT path traps.cpp:260-281,
 synthetic; the oracle uses exact exp and the estimators run with
 fast_exp=False.
 
-Also covers (ADVICE r2): LCRCAssembler.batched == vmap of __call__ over
+Also covers: LCRCAssembler.batched == vmap of __call__ over
 ragged n_valid, including rows shorter than half_context.
 """
 
@@ -144,7 +144,7 @@ def test_build_estimator_rejects_unknown():
 
 
 def test_lcrc_batched_matches_vmap_ragged():
-    """(ADVICE r2) LCRCAssembler.batched vs jax.vmap of __call__ over
+    """LCRCAssembler.batched vs jax.vmap of __call__ over
     ragged n_valid, including rows shorter than half_context."""
     from phnrec_tpu.posteriors.stc import LCRCAssembler, LCRCSpec
 
