@@ -13,17 +13,11 @@ from phnrec_tpu.io.mmf import parse_mmf
 from phnrec_tpu.io.stknet import parse_stk_network
 from phnrec_tpu.netgen import phn_list_to_hmm_defs
 
-import os
-
-from conftest import package_dir
-
-CZ_PHONEMES = os.path.join(package_dir("cz"), "dicts", "phonemes")
-
 
 @pytest.fixture(scope="module")
-def cz_models(tmp_path_factory):
+def cz_models(tmp_path_factory, seeded_phonemes):
     d = tmp_path_factory.mktemp("mmf")
-    phn_list_to_hmm_defs(CZ_PHONEMES, str(d / "models"), 3)
+    phn_list_to_hmm_defs(seeded_phonemes, str(d / "models"), 3)
     return parse_mmf(str(d / "models"))
 
 
@@ -35,16 +29,17 @@ def _rand_logpost(T: int, D: int, seed: int = 0) -> np.ndarray:
 
 
 def test_deep_null_chain_compiles_and_decodes(cz_models):
-    """A 10k-deep chain of null nodes between two models: the old
+    """A 10k-deep chain of null nodes between two models (a = p00,
+    b = p01 of the seeded phoneme list): the old
     recursive walk would blow the Python recursion limit."""
     depth = 10_000
-    lines = ["I=0 W=!NULL E=1", "I=1 M=a E=2"]
+    lines = ["I=0 W=!NULL E=1", "I=1 M=p00 E=2"]
     for i in range(depth):
         nid = 2 + i
         w = "W=!NULL" if i % 500 else "W=chain"
         lines.append(f"I={nid} {w} E={nid + 1}")
     last_null = 2 + depth
-    lines.append(f"I={last_null} M=b E={last_null + 1}")
+    lines.append(f"I={last_null} M=p01 E={last_null + 1}")
     lines.append(f"I={last_null + 1} W=!NULL")
     net = parse_stk_network("\n".join(lines), is_text=True)
     dec = StkNetworkDecoder(cz_models, net, wpenalty=-1.0, lm_scale=1.0)
@@ -62,7 +57,7 @@ def test_diamond_null_lattice_compiles(cz_models):
     paths; memoized relaxation must compile it in O(V*E) with one edge
     per (src, dst) pair."""
     layers = 24
-    decl = {0: "W=!NULL", 1: "M=a"}
+    decl = {0: "W=!NULL", 1: "M=p00"}
     arcs = {0: ["E=1"], 1: []}
     nid = 2
     prev = [1]
@@ -75,7 +70,7 @@ def test_diamond_null_lattice_compiles(cz_models):
         for p in prev:
             arcs[p].extend(f"E={c} l={-0.1 * (c % 3):g}" for c in cur)
         prev = cur
-    decl[nid] = "M=b"
+    decl[nid] = "M=p01"
     arcs[nid] = [f"E={nid + 1}"]
     decl[nid + 1] = "W=!NULL"
     arcs[nid + 1] = []
@@ -95,10 +90,10 @@ def test_diamond_null_lattice_compiles(cz_models):
 def test_null_cycle_converges_and_positive_cycle_raises(cz_models):
     base = """\
 I=0 W=!NULL E=1
-I=1 M=a E=2
+I=1 M=p00 E=2
 I=2 W=!NULL E=3
 I=3 W=!NULL E=2 {cyc} E=4
-I=4 M=b E=5
+I=4 M=p01 E=5
 I=5 W=!NULL
 """
     # zero-score cycle 2->3->2: converges (strict-improvement relaxation)

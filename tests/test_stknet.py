@@ -33,18 +33,18 @@ def test_netgen_byte_parity(tmp_path):
         os.path.join(package_dir("cz"), "net", "network")).read()
 
 
-def test_mmf_parse(tmp_path):
-    phn_list_to_hmm_defs(CZ_PHONEMES, str(tmp_path / "models"), 3)
+def test_mmf_parse(tmp_path, seeded_phonemes):
+    phn_list_to_hmm_defs(seeded_phonemes, str(tmp_path / "models"), 3)
     ms = parse_mmf(str(tmp_path / "models"))
     assert ms.vec_size == 135 and ms.pdf_obs_vec
     assert len(ms.hmms) == 45
-    h = ms.hmms["a"]
+    h = ms.hmms["p00"]
     assert h.n_states == 5 and h.obs_coefs == [0, 1, 2]
     assert h.log_transp[1, 1] == pytest.approx(np.log(0.5))
 
 
-def test_network_parse(tmp_path):
-    phn_list_to_phn_loop(CZ_PHONEMES, str(tmp_path / "network"), "oth")
+def test_network_parse(tmp_path, seeded_phonemes):
+    phn_list_to_phn_loop(seeded_phonemes, str(tmp_path / "network"), "oth")
     net = parse_stk_network(str(tmp_path / "network"))
     assert len(net.nodes) == 93  # 2 nulls + implicit terminal + 45*(M+W)
     models = [n for n in net.nodes if n.is_model]
@@ -55,14 +55,25 @@ def test_network_parse(tmp_path):
     assert w.links[0][0].is_null
 
 
-@pytest.fixture(scope="module")
-def cz_loop_decoder(tmp_path_factory):
-    d = tmp_path_factory.mktemp("czloop")
-    phn_list_to_hmm_defs(CZ_PHONEMES, str(d / "models"), 3)
-    phn_list_to_phn_loop(CZ_PHONEMES, str(d / "network"), "oth")
+def _loop_decoder(d, phonemes):
+    phn_list_to_hmm_defs(phonemes, str(d / "models"), 3)
+    phn_list_to_phn_loop(phonemes, str(d / "network"), "oth")
     ms = parse_mmf(str(d / "models"))
     net = parse_stk_network(str(d / "network"))
     return StkNetworkDecoder(ms, net, wpenalty=-4.6875, lm_scale=1.0)
+
+
+@pytest.fixture(scope="module")
+def cz_loop_decoder(tmp_path_factory):
+    return _loop_decoder(tmp_path_factory.mktemp("czloop"), CZ_PHONEMES)
+
+
+@pytest.fixture(scope="module")
+def seeded_loop_decoder(tmp_path_factory, seeded_phonemes):
+    """The phoneme loop over the seeded CZ-width phoneme list: the same
+    135 observation columns as the CZ package, other names."""
+    return _loop_decoder(tmp_path_factory.mktemp("seededloop"),
+                         seeded_phonemes)
 
 
 def test_network_decode_matches_phndec_golden(cz_loop_decoder):
@@ -160,7 +171,7 @@ def test_thresholds(tmp_path):
     assert t.get("unknown") == -10.0
 
 
-def test_decode_batch_matches_per_row(cz_loop_decoder):
+def test_decode_batch_matches_per_row(seeded_loop_decoder):
     """Batched scan + device traceback must equal per-row host decode."""
     post, _, _ = read_htk(golden("fix_cz.post"))
     lp = np.log(np.maximum(post, 1e-37)).astype(np.float32)
@@ -174,28 +185,29 @@ def test_decode_batch_matches_per_row(cz_loop_decoder):
     batch = np.zeros((len(rows), T, lp.shape[1]), np.float32)
     for b, r in enumerate(rows):
         batch[b, : r.shape[0]] = r
-    got = cz_loop_decoder.decode_batch(batch, n_frames)
+    got = seeded_loop_decoder.decode_batch(batch, n_frames)
     for b, r in enumerate(rows):
-        want = cz_loop_decoder.decode(r)
+        want = seeded_loop_decoder.decode(r)
         assert [(l.start_frames, l.end_frames, l.name) for l in got[b]] == \
             [(w.start_frames, w.end_frames, w.name) for w in want], f"row {b}"
         np.testing.assert_allclose([l.score for l in got[b]],
                                    [w.score for w in want], atol=1e-3)
 
 
-def test_beam_pruning_knob(cz_loop_decoder):
+def test_beam_pruning_knob(seeded_loop_decoder):
     """A huge beam changes nothing; a tight beam still yields a valid
     label sequence (greedy survivor path) covering the utterance."""
     post, _, _ = read_htk(golden("fix_cz.post"))
     lp = np.log(np.maximum(post, 1e-37)).astype(np.float32)
-    base = cz_loop_decoder.decode(lp)
-    cz_loop_decoder.set_beam_pruning(1e9)
-    wide = cz_loop_decoder.decode(lp)
+    dec = seeded_loop_decoder
+    base = dec.decode(lp)
+    dec.set_beam_pruning(1e9)
+    wide = dec.decode(lp)
     assert [(l.start_frames, l.end_frames, l.name) for l in wide] == \
         [(b.start_frames, b.end_frames, b.name) for b in base]
-    cz_loop_decoder.set_beam_pruning(1.0)   # very tight
-    tight = cz_loop_decoder.decode(lp)
-    cz_loop_decoder.set_beam_pruning(None)
+    dec.set_beam_pruning(1.0)   # very tight
+    tight = dec.decode(lp)
+    dec.set_beam_pruning(None)
     assert tight, "tight beam must still decode something"
     assert tight[0].start_frames == 0 and tight[-1].end_frames == lp.shape[0]
     for a, b in zip(tight, tight[1:]):
@@ -282,13 +294,13 @@ def test_kws_tracker_improve_kwd_estim():
     assert len(tr2.hits) == 1
 
 
-def test_write_stk_network_roundtrip(tmp_path):
+def test_write_stk_network_roundtrip(tmp_path, seeded_phonemes):
     """Generated loop network + a lattice with flags/likes round-trip
     through write_stk_network -> parse_stk_network."""
     from phnrec_tpu.io.stknet import parse_stk_network, write_stk_network
 
-    phn_list_to_hmm_defs(CZ_PHONEMES, str(tmp_path / "models"), 3)
-    phn_list_to_phn_loop(CZ_PHONEMES, str(tmp_path / "network"), "oth")
+    phn_list_to_hmm_defs(seeded_phonemes, str(tmp_path / "models"), 3)
+    phn_list_to_phn_loop(seeded_phonemes, str(tmp_path / "network"), "oth")
     net = parse_stk_network(str(tmp_path / "network"))
     write_stk_network(net, str(tmp_path / "net2"))
     net2 = parse_stk_network(str(tmp_path / "net2"))
